@@ -1,15 +1,16 @@
-"""bz2tpu — a TPU-native bzip2-format lossless codec built on JAX/XLA/Pallas.
+"""bz2tpu — a bzip2-format lossless codec whose block pipeline runs on an
+accelerator through JAX/XLA.
 
 Brand-new framework with the capability set of the reference
 (Stan1slav337/Bzip2-OpenCL: parallel block compression, full decode, CRC
 integrity checking, block-size levels, parallel-blocks control), re-designed
-TPU-first:
+as vectorised stages:
 
 - true 100 kB - 900 kB bzip2 blocks (standard levels 1-9), unlike the
   reference's 10x-downscaled blocks (reference include/Config.hpp:30);
 - every compression stage vectorized for a vector machine (rank-doubling
-  suffix sort for the BWT, scan-based MTF/RLE2, MXU-friendly Huffman table
-  refinement, prefix-sum bitstream packing, GF(2) parallel CRC32) instead of
+  suffix sort for the BWT, scan-based MTF/RLE2, Huffman table refinement as
+  matrix products, prefix-sum bitstream packing, GF(2) parallel CRC32) instead of
   the reference's one-sequential-pipeline-per-work-item design
   (reference kernel.cpp:3124-3159);
 - block-level data parallelism expressed over a `jax.sharding.Mesh` with
@@ -20,7 +21,7 @@ TPU-first:
 Layers (see SURVEY.md section 7):
   format/   -- bitstream format constants, CRC32, bit-level I/O (NumPy)
   oracle/   -- bit-exact scalar reference codec (NumPy), the test oracle
-  ops/      -- JAX / Pallas kernels for each pipeline stage
+  ops/      -- JAX programs for each pipeline stage
   parallel/ -- mesh construction + shard_map'ed block pipeline
   runtime/  -- stream orchestration: block scheduler, stitcher, CLI entry
   utils/    -- timing/metrics helpers
@@ -35,10 +36,10 @@ def __getattr__(name):
     """Top-level convenience API, imported lazily (keeps `import bz2tpu`
     free of JAX/device initialization):
 
-        bz2tpu.compress(data, level=9)    -> bytes  (TPU pipeline)
+        bz2tpu.compress(data, level=9)    -> bytes  (device pipeline)
         bz2tpu.decompress(stream)         -> bytes  (native C / NumPy)
         bz2tpu.compress_device_intake(..) -> bytes  (zero host passes)
-        bz2tpu.decompress_device(stream)  -> bytes  (decode on the TPU)
+        bz2tpu.decompress_device(stream)  -> bytes  (decode on the device)
         bz2tpu.StreamCompressor           push-style, checkpoint/resume
         bz2tpu.StreamDecompressor         push-style incremental decode
         bz2tpu.open / bz2tpu.BZ2File      stdlib-bz2-parity file objects

@@ -4,8 +4,8 @@ Parity with the reference CLI (app.cpp:31-179): compress by default,
 --dec / --check / --keep / --size 1-9 / --parallel N. Differences by design:
 - input files are NOT deleted unless --rm is given (the reference deletes by
   default, app.cpp:119-121 — a footgun we do not replicate);
-- --backend picks the engine: "tpu" (JAX pipeline, default) or "oracle"
-  (pure NumPy reference codec);
+- --backend picks the engine: "xla" (JAX pipeline, default), "device"
+  (everything on the device) or "oracle" (pure NumPy reference codec);
 - file inputs stream with bounded memory (reference app.cpp:105-116 reads
   128 KiB chunks; we read block-batch-sized chunks);
 - standard bzip2 block sizes (level N = N*100k), so output interoperates
@@ -24,7 +24,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bz2tpu",
-        description="TPU-native bzip2 codec (JAX/XLA/Pallas)",
+        description="bzip2 codec on accelerators (JAX/XLA)",
         epilog=(
             "examples: bz2tpu FILE | bz2tpu FILE.bz2 --dec | "
             "bz2tpu FILE.bz2 --check | bz2tpu damaged.bz2 --recover | "
@@ -54,9 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="blocks per device batch (0 = auto)",
     )
     p.add_argument(
-        "--backend", choices=["tpu", "oracle", "device"], default="tpu",
-        help="tpu: JAX compress + native host decode; oracle: pure NumPy; "
-        "device: EVERYTHING on the TPU (compress: RLE1/split/CRC intake "
+        "--backend", choices=["xla", "oracle", "device"], default="xla",
+        help="xla: JAX compress + native host decode; oracle: pure NumPy; "
+        "device: EVERYTHING on the device (compress: RLE1/split/CRC intake "
         "on device; decompress: Huffman+MTF+IBWT on device)",
     )
     p.add_argument("-o", "--output", help="output path (default: input+.bz2 / strip .bz2)")
@@ -142,7 +142,7 @@ def main(argv: list[str] | None = None) -> int:
 def _run_one(args) -> int:
     from bz2tpu.utils.metrics import Clock, RunMetrics
 
-    if args.banner and args.backend == "tpu":
+    if args.banner and args.backend == "xla":
         from bz2tpu.utils.device import print_device_banner
 
         print_device_banner()
@@ -181,7 +181,7 @@ def _run_one(args) -> int:
             out_path = args.output or (
                 args.file[:-4] if args.file.endswith(".bz2") else args.file + ".out"
             )
-            if not use_stdio and not args.check and args.backend == "tpu":
+            if not use_stdio and not args.check and args.backend == "xla":
                 # Bounded-memory file-to-file decode (mmap + sliding window).
                 from bz2tpu.runtime.decompressor import decompress_file
 
@@ -215,7 +215,7 @@ def _run_one(args) -> int:
             metrics.op = "compress"
             out_path = args.output or (args.file + ".bz2")
             if args.backend == "device":
-                # Fully-device pipeline: RLE1 + split + CRC + encode on TPU.
+                # Fully-device pipeline: RLE1 + split + CRC + encode on device.
                 from bz2tpu.runtime.compressor import compress_device_intake
 
                 data = _read_input(args, use_stdio)
@@ -266,7 +266,7 @@ def _run_one(args) -> int:
         print(
             f"{metrics.input_bytes} -> {metrics.output_bytes} bytes "
             f"({metrics.ratio:.3f}) in {metrics.seconds:.3f}s "
-            f"({metrics.mb_per_s:.1f} MB/s)",
+            f"({metrics.mb_per_s:.1f} MB per second)",
             file=sys.stderr,
         )
     if args.rm and not use_stdio:

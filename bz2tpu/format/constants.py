@@ -53,10 +53,8 @@ HUFFMAN_DECODE_MAX_ACCEPTED_LENGTH = 20
 # new partition), and once the selector assignment repeats, rfreq and
 # hence the lengths are a fixed point. Typical blocks converge well
 # under the old fixed count of 8, so the exit makes the stage FASTER,
-# while hard blocks keep buying bytes past 8 (measured: 8 -> 12 passes =
-# -175 bytes on the bench corpus; the round-4 sweep's level-6 row sat
-# +0.00006 above stock — VERDICT r4 item 5). Each pass is one
-# (maxsel,258)x(258,6) MXU matmul + argmin + 6 table rebuilds.
+# while hard blocks keep buying bytes past 8. Each pass is one
+# (maxsel,258)x(258,6) matrix product + argmin + 6 table rebuilds.
 HUFFMAN_REFINE_ITERS = 32
 
 # --- RLE2 run symbols ---

@@ -1,7 +1,7 @@
 /* bz2tpu native decode core.
  *
  * Standalone C implementation of bzip2 stream decoding (and CRC32), the
- * TPU framework's host-native runtime piece — the counterpart of the
+ * framework's host-native runtime piece — the counterpart of the
  * reference's host-side C++ decode stack (reference
  * include/InputStream.hpp:36-159, include/BlockDecompressor.hpp:37-284,
  * include/HuffmanStageDecoder.hpp:86-136), written fresh at standard
@@ -681,7 +681,7 @@ oom:
 }
 
 /* Inverse RLE1 + CRC over an already-BWT-inverted block (the host tail of
-   the DEVICE decode path: Huffman/MTF/IBWT run on the TPU, this single
+   the DEVICE decode path: Huffman/MTF/IBWT run on the device, this single
    linear pass undoes the RLE1 pre-pass — reference
    include/BlockDecompressor.hpp:55-90 — and folds the block CRC). */
 static PyObject *py_inverse_rle1(PyObject *self, PyObject *args) {

@@ -1,4 +1,4 @@
-"""JAX/XLA/Pallas kernels for each bzip2 pipeline stage.
+"""JAX/XLA programs for each bzip2 pipeline stage.
 
 Every op here is fixed-shape (blocks padded to capacity, valid lengths
 carried as scalars), jit-compatible, and vmap-able over a batch-of-blocks

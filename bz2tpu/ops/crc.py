@@ -2,7 +2,7 @@
 
 The reference computes CRCs strictly serially on the host, one byte at a
 time (reference include/CRC32.hpp:62-74, include/BlockCompressor.hpp:137).
-CRC over GF(2) is linear, so the TPU formulation decomposes it:
+CRC over GF(2) is linear, so the vectorized formulation decomposes it:
 
   * the buffer is cut into L equal lanes; all lanes advance together one
     byte-position per step (a (B, L) table gather per step — vectorized,

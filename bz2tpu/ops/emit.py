@@ -243,8 +243,7 @@ def _block_elements(symbols, selectors, lengths, codes, hdr_vals, hdr_lens, *, m
     """One block's full (values, bit-lengths, valid) element sequence:
     header slots followed by Huffman symbol codes. The per-symbol length
     and code ride ONE packed (6, 258) table gather — (code << 5) | length
-    fits 25 bits (codes < 2^20, lengths <= 20) — instead of two; gathers
-    are the priced op on this backend (tools/probe8_out.jsonl)."""
+    fits 25 bits (codes < 2^20, lengths <= 20) — instead of two."""
     S = symbols.shape[0]
     gid = jnp.arange(S, dtype=jnp.int32) // C.HUFFMAN_GROUP_SIZE
     sel = selectors[jnp.clip(gid, 0, maxsel - 1)]
@@ -282,8 +281,7 @@ def pack_blocks_concat(
     """Batch pack_block FUSED with concat_block_words: every block's
     header + symbol elements scatter ONCE into the final concatenated
     buffer at global bit offsets, skipping the intermediate per-block
-    (B, W) words buffer and the concat's second scatter pass entirely
-    (probe24: the separate stages cost 0.29 + 0.12 s/batch at -9).
+    (B, W) words buffer and the concat's second scatter pass entirely.
 
     Args are the batch (leading B axis) forms of pack_block's, plus
     ``live`` (B,) bool — padding rows contribute 0 bits.

@@ -5,7 +5,7 @@ bit loop per symbol (reference include/HuffmanStageDecoder.hpp:48-73,
 include/BlockDecompressor.hpp:187-242). The serial chain is the code
 boundaries: symbol k's bit offset depends on every previous code length.
 
-TPU formulation — *jump-map decode* (the FSM-composition idea expressed
+Device formulation — *jump-map decode* (the FSM-composition idea expressed
 over bit positions, which for a prefix-free code need no tree-node state):
 
   1. For EVERY bit position p in the block's symbol-data range, and each
@@ -44,8 +44,9 @@ from bz2tpu.format import constants as C
 
 _KMAX = C.HUFFMAN_DECODE_MAX_ACCEPTED_LENGTH  # 20: codes longer are invalid
 _LUT_BITS = 20  # code length is a function of the top 20 window bits
-# int16 relative-delta jump composition (TODO #4); A/B'd on-device in
-# tools/perf_probe16_decode.py — see PERF.md round 5 for the verdict.
+# int16 relative-delta jump composition: half the gather bytes for two
+# more elementwise ops per pass. Off by default; not yet measured on the
+# GPU (PERF.md, Findings).
 _I16_JUMPS = os.environ.get("BZ2TPU_DEC_I16", "0") == "1"
 
 
@@ -60,9 +61,8 @@ def build_len_luts(thr: jnp.ndarray) -> jnp.ndarray:
     step function: one tiny scatter of the 21 boundaries + a cumsum.
     Build cost is ~1 pass of 2^20 per UNIQUE table; the decode then
     replaces every per-position searchsorted (a ~5-pass binary search)
-    with ONE gather (TODO #4 / VERDICT-r3 item 4 — the pass-count cut,
-    amortized across a block bucket by same-table detection in
-    runtime/device_decode.py)."""
+    with ONE gather (amortized across a block bucket by same-table
+    detection in runtime/device_decode.py)."""
     u = thr.shape[0]
     thr3 = jnp.clip(thr >> 3, 0, 1 << _LUT_BITS)
     # int8 throughout: counts max out at 21, and int32 intermediates
@@ -189,12 +189,12 @@ def decode_symbol_data(
     # table — same elements moved, 6x fewer dispatches.
     seg = (jnp.arange(n_tables, dtype=jnp.int32) * n_bits_cap)[:, None]
     if _I16_JUMPS:
-        # int16 RELATIVE composition (TODO #4): a 50-symbol advance is
+        # int16 RELATIVE composition: a 50-symbol advance is
         # <= 50*20 = 1000 bits, so every composed jump fits int16 as a
         # DELTA — the 7 gather passes move half the bytes (2 vs 4 B per
         # element) at the cost of re-deriving absolute indices (+2 fused
         # elementwise ops per pass). Worthwhile iff the backend prices
-        # gathers by bytes (real HBM) rather than per element (this box).
+        # gathers by bytes rather than per element.
         p_flat = jnp.broadcast_to(p_rel[None, :], (n_tables, n_bits_cap)).reshape(-1)
         seg_flat = jnp.broadcast_to(seg, (n_tables, n_bits_cap)).reshape(-1)
         d = lens_all.astype(jnp.int16).reshape(-1)

@@ -3,7 +3,7 @@
 The reference (and every host bzip2) walks the T-vector one dependent hop
 per output byte — a serial pointer chase that is THE classic decode
 bottleneck (reference include/BlockDecompressor.hpp:244-282: counting sort
-to build T, then one `decodeNextBWTByte` per byte). The TPU formulation
+to build T, then one `decodeNextBWTByte` per byte). The device formulation
 removes the serial chain: the walk's orbit
 
     pos[0] = T[orig_ptr],  pos[i+1] = T[pos[i]]

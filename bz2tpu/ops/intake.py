@@ -30,9 +30,9 @@ def chunk_capacity(level: int, max_blocks: int) -> int:
     The pow2 ceiling's ~16% slack over `need` is FUNCTIONAL, not waste:
     an exact-need window leaves the final block under-full whenever RLE1
     shrinks the raw bytes at all, firing the partial-block holdback every
-    chunk (7 of 8 blocks consumed + a rescan) — measured 3.40 -> 2.44
-    MB/s e2e when round 5 tried trimming the window to a 2^16 multiple
-    (probe18 log). The slack keeps every batch full on typical data.
+    chunk (7 of 8 blocks consumed + a rescan), which lost end to end when
+    the window was trimmed to a 2^16 multiple. The slack keeps every batch
+    full on typical data.
     """
     need = C.block_capacity(level) * max_blocks
     cap = 1 << 12

@@ -39,7 +39,6 @@ float log2.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +48,6 @@ from jax import lax
 # the XLA backend at import time, breaking jax.distributed.initialize in
 # multi-host processes that import bz2tpu before calling it.
 _NEG = -(1 << 30)
-_USE_PALLAS_DEFAULT = os.environ.get("BZ2TPU_PALLAS", "0") == "1"
 _MAX_RUN_DIGITS = 21  # floor(log2(900_001 + 1)) = 19; margin for any capacity
 
 
@@ -57,10 +55,10 @@ def _hist_by_sort(vals: jnp.ndarray, n_bins: int) -> jnp.ndarray:
     """Histogram of ``vals`` into bins 0..n_bins-1 via sort + searchsorted.
 
     Entries outside [0, n_bins) are ignored (map them to >= n_bins before
-    calling, e.g. a sentinel). Measured 2.2x faster than the scatter-add
-    .at[].add(1) histogram on this backend (tools/probe8_out.jsonl:
-    44 ms vs 97 ms per (8, 900k) batch row) — one cheap 1-operand sort
-    plus a 257-query binary search instead of a scatter pass.
+    calling, e.g. a sentinel). One 1-operand sort plus a 257-query binary
+    search instead of a scatter-add pass; the sort form won on the
+    hardware it was first tuned on and has not been re-measured on the
+    GPU.
     """
     s = lax.sort((vals,), num_keys=1)[0]
     edges = jnp.arange(n_bins + 1, dtype=vals.dtype)
@@ -88,8 +86,8 @@ def _collapse(last: jnp.ndarray, n: jnp.ndarray):
 
     # Compaction by one 3-operand stable sort on a front/back key instead
     # of two masked scatters: change positions keep relative order at the
-    # front, the rest sink. Same scatter-is-the-slow-path reasoning as the
-    # BWT re-rank (ops/bwt.py:_inverse_permute, tools/probe4_out.jsonl).
+    # front, the rest sink (same sort-for-scatter choice as the BWT
+    # re-rank, ops/bwt.py:_inverse_permute).
     prev = jnp.concatenate([jnp.full((1,), -2, jnp.int32), seq[:-1]])
     change = valid & (seq != prev)
     m = jnp.sum(change.astype(jnp.int32))  # collapsed length
@@ -204,8 +202,7 @@ def _mtf_ranks_batch(
     of LIVE slots `lanes` at a time — trip count sum(ceil(m_b/chunk)) /
     lanes instead of the vmapped-while form's max(ceil(m_b/chunk)), which
     a single low-collapse (random-data) block otherwise forces on the
-    whole batch (tools/probe14: the mixed bench batch spreads 56..220
-    chunks across blocks).
+    whole batch.
     """
     B, cap = cseqs.shape
     pad = (-cap) % chunk
@@ -306,7 +303,7 @@ def _rle2_plan(
 
     # Each collapsed position k emits: digits(gap'_k) then (rank_k + 1),
     # where gap'_1 absorbs position 0 when r0_zero (and position 0 then
-    # emits nothing). A virtual terminal slot k == m emits digits of the
+    # emits nothing). A virtual final slot k == m emits digits of the
     # trailing run. Emission counts:
     gap_eff = jnp.where((k_iota == 1) & r0_zero, gap + 1, gap)
     zp1 = jnp.where(k_valid, gap_eff, 0) + 1  # run+1; 1 when no run
@@ -365,10 +362,8 @@ def _rle2_out(plan: dict, width: int, *, with_freqs: bool = True):
     # Output position j belongs to the collapsed position k whose span
     # [offsets[k], offsets[k]+emit[k]) holds j — recovered by filling
     # span-start markers forward (one scatter + cummax); within the span
-    # the per-k payload arrives as TWO packed int32 gathers — gathers are
-    # ~2.3x an elementwise pass on this backend (tools/probe8_out.jsonl).
-    # A single int64 fill word would drop the gathers entirely but x64 is
-    # disabled jax-wide.
+    # the per-k payload arrives as TWO packed int32 gathers. A single
+    # int64 fill word would need one gather but x64 is disabled jax-wide.
     k_of = jnp.zeros(width + 1, jnp.int32).at[plan["pos"]].max(
         plan["kval"], mode="drop"
     )[:width]
@@ -422,13 +417,12 @@ def _rle2_emit(
     }
 
 
-@functools.partial(jax.jit, static_argnames=("chunk", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("chunk",))
 def mtf_rle2_encode(
     last: jnp.ndarray,
     n: jnp.ndarray,
     *,
-    chunk: int = 4096,  # 4096/8192/16384/32768 swept: 0.95/1.00/0.99/1.01 s
-    use_pallas: bool = _USE_PALLAS_DEFAULT,
+    chunk: int = 4096,
 ):
     """MTF + RLE2 encode the BWT last column (one block).
 
@@ -449,24 +443,16 @@ def mtf_rle2_encode(
         # fit 15 bits or the cummax last-occurrence invariant breaks.
         raise ValueError(f"mtf chunk must be <= 32768, got {chunk}")
     cseq, cidx, m, used, n_in_use = _collapse(last, n)
-
-    if use_pallas:
-        from bz2tpu.ops.mtf_pallas import mtf_ranks_pallas
-
-        cranks = mtf_ranks_pallas(cseq, n_in_use, m=m, chunk=min(chunk, 2048))
-    else:
-        cranks = _mtf_ranks_collapsed(cseq, m, n_in_use, chunk)
-
+    cranks = _mtf_ranks_collapsed(cseq, m, n_in_use, chunk)
     return _rle2_emit(cranks, cidx, m, n, used, n_in_use)
 
 
-@functools.partial(jax.jit, static_argnames=("chunk", "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("chunk",))
 def mtf_rle2_plan(
     last: jnp.ndarray,
     n: jnp.ndarray,
     *,
     chunk: int = 4096,
-    use_pallas: bool = _USE_PALLAS_DEFAULT,
 ):
     """Collapse + MTF ranks + collapsed-domain RLE2 plan for one block —
     ``mtf_rle2_encode`` minus the output-domain emission, which the
@@ -475,14 +461,7 @@ def mtf_rle2_plan(
     if chunk > 32768:
         raise ValueError(f"mtf chunk must be <= 32768, got {chunk}")
     cseq, cidx, m, used, n_in_use = _collapse(last, n)
-
-    if use_pallas:
-        from bz2tpu.ops.mtf_pallas import mtf_ranks_pallas
-
-        cranks = mtf_ranks_pallas(cseq, n_in_use, m=m, chunk=min(chunk, 2048))
-    else:
-        cranks = _mtf_ranks_collapsed(cseq, m, n_in_use, chunk)
-
+    cranks = _mtf_ranks_collapsed(cseq, m, n_in_use, chunk)
     return _rle2_plan(cranks, cidx, m, n, used, n_in_use)
 
 

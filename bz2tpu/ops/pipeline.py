@@ -1,7 +1,7 @@
 """The fused per-block encode pipeline: BWT -> MTF/RLE2 -> Huffman -> pack.
 
 One jit compilation serves every block at a given capacity; blocks batch
-along a leading vmap axis (the TPU-native replacement for the reference's
+along a leading vmap axis (the vectorised replacement for the reference's
 one-work-item-per-block kernel_close, reference kernel.cpp:3124-3159).
 """
 
@@ -14,8 +14,6 @@ import jax
 import jax.numpy as jnp
 
 from bz2tpu.ops.bwt import bwt_encode
-
-_PALLAS_BWT = os.environ.get("BZ2TPU_PALLAS_BWT", "0") == "1"
 from bz2tpu.ops.emit import pack_block
 from bz2tpu.ops.huffman import huffman_assign, max_selectors
 from bz2tpu.ops.mtf import mtf_rle2_encode
@@ -59,30 +57,12 @@ def encode_blocks(blocks, ns, crcs, *, mtf_chunk: int = 4096):
 # --- staged form: three smaller compilations instead of one mega-graph ---
 # The fused jit above is what the compile-check entry uses; the runtime
 # dispatches these stages instead because XLA optimization time grows
-# superlinearly with graph size (the fused 900k-block pipeline costs ~20
-# minutes to compile on the TPU terminal; the stages total a fraction of
-# that and cache independently). Intermediates never leave the device.
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def bwt_stage_pallas(blocks, ns, *, interpret: bool = False):
-    """BWT stage through the Pallas kernel path (ops/bwt_pallas.py).
-
-    Blocks run sequentially via lax.map — each block's bitonic stages
-    already saturate the core's VMEM/VPU, so batch vmap buys nothing
-    and would multiply the VMEM working set."""
-    from bz2tpu.ops.bwt_pallas import bwt_encode_pallas
-
-    return jax.lax.map(
-        lambda bn: bwt_encode_pallas(bn[0], bn[1], interpret=interpret),
-        (blocks, ns),
-    )
+# superlinearly with graph size, and the stages cache independently.
+# Intermediates never leave the device.
 
 
 @jax.jit
 def bwt_stage(blocks, ns):
-    if _PALLAS_BWT:
-        return bwt_stage_pallas(blocks, ns)
     return jax.vmap(bwt_encode)(blocks, ns)
 
 
@@ -91,16 +71,14 @@ _BATCH_MTF = os.environ.get("BZ2TPU_BATCH_MTF", "0") == "1"
 
 @functools.partial(jax.jit, static_argnames=("mtf_chunk",))
 def mtf_stage(last, ns, *, mtf_chunk: int = 4096):
-    """Per-block vmapped MTF (the measured winner on this box).
+    """Per-block vmapped MTF.
 
-    The round-5 load-balanced batch scan (ops/mtf.mtf_rle2_encode_batch:
+    The load-balanced batch scan (ops/mtf.mtf_rle2_encode_batch:
     compacted live slots + closed-form carries, trip count sum(m_b) not
-    max(m_b)) stays behind BZ2TPU_BATCH_MTF=1 as a documented negative
-    result: the ranks scan is only ~0.10 s/batch, so halving its trips
-    cannot repay the carry-precompute scatter and per-iteration
-    gather/scatter (0.17 vs 0.10 s, tools/probe14_out.jsonl). The round-5
-    MTF win came from the shared RLE2 emission rework instead (4 big
-    gathers -> k_of fill + 2 packed gathers: stage 0.86 -> 0.50 s)."""
+    max(m_b)) stays behind BZ2TPU_BATCH_MTF=1: it lost on the hardware
+    it was first measured on, where the carry-precompute scatter and the
+    per-iteration gather/scatter cost more than the halved trip count
+    saved. It has not been measured on the GPU."""
     if _BATCH_MTF:
         from bz2tpu.ops.mtf import mtf_rle2_encode_batch
 
@@ -113,9 +91,8 @@ def huff_pack_stage(symbols, n_sym, freqs, n_in_use, orig_ptr, used, crcs):
     """Huffman planning + COMPLETE block emission (header + symbol data
     packed on device, ops/emit.pack_block) with per-block scalars bundled
     into one (B, 6) 'meta' array so the host pulls everything in two
-    transfers (meta + sliced words; every fetch is an RPC on remote
-    terminals). Meta layout: orig_ptr, n_sym, n_in_use, n_groups,
-    n_selectors, total_bits."""
+    transfers (meta + sliced words). Meta layout: orig_ptr, n_sym,
+    n_in_use, n_groups, n_selectors, total_bits."""
     capacity = symbols.shape[-1] - 2
     maxsel = max_selectors(capacity)
 
@@ -148,9 +125,9 @@ def huff_pack_stage(symbols, n_sym, freqs, n_in_use, orig_ptr, used, crcs):
 # proportionally with BIT-IDENTICAL output (positions >= n_sym are -1
 # padding that contributes 0 bits either way; the header's selector slots
 # shrink with max_selectors(width) but slots beyond n_selectors carry 0
-# bits). Widths quantize to eighths of the full domain so at most 7
-# programs per capacity ever compile (each distinct shape is a cached
-# multi-minute compile on the remote terminal).
+# bits). Widths quantize to eighths of the full domain so at most six
+# programs per capacity ever compile (each distinct shape is one more
+# cached compile).
 _COMPACT_PACK = os.environ.get("BZ2TPU_COMPACT_PACK", "1") == "1"
 # Sub-toggle: also run the RLE2 output-domain emission at the compact
 # width (ops/mtf._rle2_out) inside the pack program, instead of at full
@@ -259,10 +236,9 @@ def encode_blocks_staged(blocks, ns, crcs, *, mtf_chunk: int = 4096):
     last, orig_ptr = bwt_stage(blocks, ns)
     if _COMPACT_PACK and _COMPACT_EMIT and not _BATCH_MTF:
         plan = mtf_plan_stage(last, ns, mtf_chunk=mtf_chunk)
-        # One small scalar fetch per batch (~an RPC); the device executes
-        # in order, so the previous batch's D2H still overlaps this
-        # batch's emit+huff+pack dispatch (runtime/compressor.py async
-        # notes).
+        # One small scalar fetch per batch; the device executes in order,
+        # so the previous batch's D2H still overlaps this batch's
+        # emit+huff+pack dispatch (runtime/compressor.py async notes).
         width = huff_width(blocks.shape[-1], int(jnp.max(plan["n_sym"])))
         out = dict(emit_huff_pack_stage(plan, orig_ptr, crcs, width=width))
         out["orig_ptr"] = orig_ptr

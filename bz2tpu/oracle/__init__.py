@@ -1,6 +1,6 @@
 """Scalar oracle codec: a bit-exact bzip2 encoder/decoder in NumPy/Python.
 
-This is the test oracle every TPU kernel is differential-tested against,
+This is the test oracle every device op is differential-tested against,
 standing in for the reference's C++ host pipeline + OpenCL kernel semantics
 (reference include/BlockCompressor.hpp, include/BlockDecompressor.hpp,
 kernel.cpp K3-K6). It targets *standard* bzip2 (100k-900k blocks), so stdlib

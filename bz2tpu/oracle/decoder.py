@@ -173,7 +173,7 @@ def inverse_bwt(last: np.ndarray, orig_ptr: int) -> np.ndarray:
     The reference walks the T-vector one dependent hop per byte
     (BlockDecompressor.hpp:269-282); here the walk orbit is materialized with
     log2(n) batched gathers (jump arrays order^(2^k)), which is the same
-    formulation the TPU decode path uses.
+    formulation the device decode path uses.
     """
     n = last.size
     if not 0 <= orig_ptr < n:

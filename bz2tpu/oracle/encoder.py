@@ -332,8 +332,8 @@ def huffman_plan(symbols: np.ndarray, freqs: np.ndarray, alpha_size: int) -> Huf
 
     Seeding slices the cumulative frequency range into nGroups spans with
     0/15 starting lengths; then per-group cheapest-table selection passes,
-    iterated to the selector fixed point (capped at HUFFMAN_REFINE_ITERS) (a groups x tables cost reduction — on TPU this
-    is a (groups, alpha) @ (alpha, tables) matmul) and per-table code-length
+    iterated to the selector fixed point (capped at HUFFMAN_REFINE_ITERS) (a groups x tables cost reduction — on the device
+    this is a (groups, alpha) @ (alpha, tables) matmul) and per-table code-length
     rebuilds. Semantics of reference kernel.cpp:2859-2951 / stock
     sendMTFValues.
     """

@@ -19,8 +19,8 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed.
 
-    With no arguments, attempts environment auto-detection (TPU pod
-    metadata, cluster env vars) exactly like jax.distributed.initialize;
+    With no arguments, attempts environment auto-detection (cluster
+    metadata and env vars) exactly like jax.distributed.initialize;
     a plain single-process environment with nothing to detect degrades to
     a single-process run WITH A LOUD WARNING (a misconfigured pod must not
     silently compress on 1/N of its hosts). Explicit arguments always

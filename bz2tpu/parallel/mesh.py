@@ -41,8 +41,8 @@ def pad_batch(n_blocks: int, n_shards: int, batch_per_shard: int | None = None) 
 def _sharded_stages(mesh: Mesh, mtf_chunk: int):
     """The three staged jits (ops.pipeline), each shard_map'ed over blocks.
 
-    Sharding per stage keeps the compile-time win of the staged split (the
-    fused graph costs ~20 minutes on the TPU terminal) on meshes too.
+    Sharding per stage keeps the compile-time win of the staged split
+    (ops/pipeline.py) on meshes too.
     There is no cross-shard communication anywhere, so the
     varying-manual-axes check has nothing to protect (check_vma=False: the
     stages' scan/while carries start from replicated constants).

@@ -21,12 +21,12 @@ from bz2tpu.format.bitio import BitWriter, concat_bitstreams
 from bz2tpu.format.crc32 import stream_crc
 from bz2tpu.oracle.encoder import Rle1Block, rle1_split
 
-DEFAULT_BATCH = 8  # best measured per-block device throughput (B=4/8/32 sweep)
+DEFAULT_BATCH = 8  # blocks per device batch; not yet re-swept on the GPU
 
 
 def split_blocks(data: bytes | np.ndarray, level: int) -> list[Rle1Block]:
-    """RLE1 + CRC block intake: native C single pass when built (the host
-    here is pathologically slow at bulk NumPy reads), NumPy fallback."""
+    """RLE1 + CRC block intake: native C single pass when built, NumPy
+    fallback (bz2tpu.native warns when it has to fall back)."""
     from bz2tpu import native
 
     if native.HAVE_NATIVE:
@@ -85,8 +85,8 @@ def _block_header_bits(
     return np.frombuffer(w.getvalue(), dtype=np.uint8), w.bit_length
 
 
-# Default ON (measured equal-or-better end-to-end and removes all host bit
-# work); BZ2TPU_DEVICE_STITCH=0 restores the per-block host stitch.
+# Default ON (removes all host bit work); BZ2TPU_DEVICE_STITCH=0 restores
+# the per-block host stitch.
 _DEVICE_STITCH = __import__("os").environ.get("BZ2TPU_DEVICE_STITCH", "1") == "1"
 
 _SLICE_GRANULE = 1 << 14  # words; bounds distinct compiled slice shapes
@@ -102,16 +102,15 @@ def _word_slicer(nwords: int):
 def _fetch_words_batch(words_dev, bit_counts: list[int]) -> list[np.ndarray]:
     """Fetch every block's compressed word prefix in ONE transfer.
 
-    The device link is slow (tens of MB/s) and each fetch is an RPC round
-    trip; the padded words buffer is ~25x the compressed size. One sliced
-    (B, max_words) pull sized by the batch's largest block costs far less
-    than either whole rows or per-row slices. Slice widths round to a
+    The padded words buffer is many times the compressed size, and every
+    fetch is one device->host round trip. One sliced (B, max_words) pull
+    sized by the batch's largest block moves less than whole rows and
+    costs fewer round trips than per-row slices. Slice widths round to a
     granule so only a handful of slice programs ever compile.
     """
     nws = [(tb + 31) // 32 for tb in bit_counts]
     # Power-of-two widths: every distinct width compiles a (tiny) slice
-    # program, which costs ~tens of seconds on the remote terminal — one
-    # width per octave keeps that to a handful per stream.
+    # program — one width per octave keeps that to a handful per stream.
     padded = _SLICE_GRANULE
     while padded < max(nws):
         padded *= 2
@@ -134,7 +133,7 @@ def _encode_batches(blocks: list[Rle1Block], capacity: int, batch: int):
     from bz2tpu.ops.pipeline import encode_blocks_staged
     from bz2tpu.utils.jaxenv import setup_compilation_cache
 
-    setup_compilation_cache()  # first compiles are minutes on the terminal
+    setup_compilation_cache()
 
     n_blocks = len(blocks)
     bases = list(range(0, n_blocks, batch))
@@ -151,7 +150,7 @@ def _encode_batches(blocks: list[Rle1Block], capacity: int, batch: int):
     def dispatch(base):
         chunk = blocks[base : base + batch]
         # Always pad to the full batch so one compiled shape serves every
-        # round (recompiles cost minutes on the TPU terminal).
+        # round.
         buf = np.zeros((batch, capacity), dtype=np.uint8)
         ns = np.ones(batch, dtype=np.int32)  # padding rows encode 1 junk byte
         crcs = np.zeros(batch, dtype=np.uint32)
@@ -168,8 +167,7 @@ def _encode_batches(blocks: list[Rle1Block], capacity: int, batch: int):
         pending = dispatch(bases[bi + 1]) if bi + 1 < len(bases) else None
         # Two fetches per batch: packed scalars and the compressed words —
         # the device emits the COMPLETE block bitstream (header included,
-        # ops/emit.pack_block), so no header blob exists anymore (each
-        # fetch is an RPC round trip).
+        # ops/emit.pack_block), so no header blob exists.
         meta = np.asarray(out["meta"])
         words = _fetch_words_batch(
             out["words"], [int(meta[i, 5]) for i in range(n_chunk)]
@@ -186,7 +184,7 @@ def compress_device_intake(
     parallel: int | None = None,
 ) -> bytes:
     """Compress with the FULLY-DEVICE pipeline: RLE1, block splitting, and
-    per-block CRCs run on the TPU (ops/intake.py) — no native extension
+    per-block CRCs run on the device (ops/intake.py) — no native extension
     and no host pass over the raw bytes; the host only uploads chunks and
     stitches finished block bitstreams.
 
@@ -240,8 +238,8 @@ def compress_device_intake(
 
     # One launched-but-unfetched batch rides behind the scan: the next
     # chunk's intake+encode is dispatched BEFORE the previous batch's
-    # words leave the device, overlapping the (slow) D2H transfer with
-    # device compute — the same async pattern as _encode_batches.
+    # words leave the device, overlapping the D2H transfer with device
+    # compute — the same async pattern as _encode_batches.
     pending = None
     while offset < arr.size:
         take = min(cur_chunk_n, arr.size - offset)
@@ -291,8 +289,7 @@ def compress_device_intake(
 def _live_mask(batch: int, n_chunk: int):
     """Device-resident (batch,) bool mask, uploaded ONCE per distinct
     value: a stream sees exactly two (all-live and the final partial
-    batch), and a fresh upload per batch would be an RPC per batch on
-    remote terminals."""
+    batch), so no batch pays its own host->device upload."""
     import jax.numpy as jnp
 
     return jnp.asarray(np.arange(batch) < n_chunk)
@@ -301,7 +298,7 @@ def _live_mask(batch: int, n_chunk: int):
 @functools.lru_cache(maxsize=None)
 def _pair_fetch():
     """One program stacking two scalars: the previous batch's total bits
-    and the current batch's max n_sym leave the device in ONE RPC."""
+    and the current batch's max n_sym leave the device in ONE transfer."""
     import jax
     import jax.numpy as jnp
 
@@ -326,14 +323,13 @@ def _encode_batches_concat(blocks: list[Rle1Block], capacity: int, batch: int):
     batch, zero host bit work (default ON; BZ2TPU_DEVICE_STITCH=0
     restores the per-block host stitch).
 
-    With the compact-width pipeline (ops/pipeline round-5 note) the
+    With the compact-width pipeline (ops/pipeline compact-width note) the
     batch's max n_sym must reach the host BEFORE the emit+huff+pack
-    dispatch; fetching it separately costs one extra RPC per batch
-    (measured a net LOSS at level 1: 15 batches x ~30-60 ms,
-    tools/probe19_out.jsonl). Here it rides the scalar RPC the stitch
+    dispatch; fetching it separately would cost one extra device->host
+    round trip per batch. Here it rides the scalar fetch the stitch
     already pays: one (2,) fetch carries the PREVIOUS batch's total bits
-    and the CURRENT batch's max n_sym, keeping the per-batch RPC count
-    identical to the full-width driver.
+    and the CURRENT batch's max n_sym, keeping the per-batch round-trip
+    count identical to the full-width driver.
     """
     import jax.numpy as jnp
 
@@ -434,7 +430,7 @@ def compress(
     level: int = C.DEFAULT_LEVEL,
     parallel: int | None = None,
 ) -> bytes:
-    """Compress `data` into a standard .bz2 stream via the TPU pipeline."""
+    """Compress `data` into a standard .bz2 stream via the device pipeline."""
     arr = (
         np.frombuffer(bytes(data), dtype=np.uint8)
         if not isinstance(data, np.ndarray)
@@ -447,9 +443,9 @@ def compress(
     batch = parallel or DEFAULT_BATCH
     if len(blocks) < batch:
         # Quantize small streams to power-of-two batch widths: every
-        # distinct width is its own multi-minute XLA compile on the
-        # terminal, so {1,2,4,8} bounds the program count (utils.jaxenv
-        # .prime pre-compiles every width in the set). An EXPLICIT
+        # distinct width is its own XLA compile, so {1,2,4,8} bounds the
+        # program count (utils.jaxenv.prime pre-compiles every width in
+        # the set). An EXPLICIT
         # --parallel is a device-memory cap, so never quantize past it.
         b = 1
         while b < max(len(blocks), 1):

@@ -1,4 +1,4 @@
-"""Device decompression driver: Huffman + MTF + IBWT on the TPU.
+"""Device decompression driver: Huffman + MTF + IBWT on the device.
 
 The reference decompresses 100% on the host (reference
 include/InputStream.hpp:51-95 — single thread, one byte per pull). This
@@ -16,7 +16,9 @@ driver moves the three expensive stages onto the device per block:
 Every device result is validated exactly (fixpoint + EOB-at-end-bit +
 block CRC); any block the device path cannot certify routes the whole
 stream to the host decoder, so behavior is identical to
-runtime/decompressor.decompress on all inputs.
+runtime/decompressor.decompress on all inputs. Every such fallback is
+counted by reason in ``fallback_stats`` and warned about, so a caller that
+meant to decode on the device can tell that it did not.
 
 Compile shapes are quantized (group count to a power of two, output
 capacity per level) so a handful of XLA programs serve every stream.
@@ -24,13 +26,15 @@ capacity per level) so a handful of XLA programs serve every stream.
 
 from __future__ import annotations
 
+import collections
 import functools
 import os
+import warnings
 
 import numpy as np
 
-# Blocks per vmapped device dispatch (pow2-padded). 8 measured best at
-# round 4; 16 halves dispatch count per bucket (A/B: perf_probe16).
+# Blocks per vmapped device dispatch (pow2-padded); 16 halves the dispatch
+# count per bucket. Neither value has been measured on the GPU yet.
 _BUCKET_W = int(os.environ.get("BZ2TPU_DEC_BUCKET", "8"))
 
 import jax
@@ -45,6 +49,13 @@ from bz2tpu.ops.ibwt import ibwt
 from bz2tpu.ops.mtf_dec import mtf_rle2_decode
 from bz2tpu.oracle import decoder as od
 from bz2tpu.oracle.decoder import Bz2CrcError, Bz2FormatError
+
+# Host-decoder fallbacks of decompress_device in this process, by reason.
+fallback_stats: collections.Counter = collections.Counter()
+
+
+class _HostFallback(Exception):
+    """The device path cannot certify this stream; the message says why."""
 
 
 def _parse_block_header(stream: bytes, bit_off: int) -> dict:
@@ -154,26 +165,35 @@ def _pow2_at_least(n: int, floor: int = 16) -> int:
 
 def decompress_device(stream: bytes, verify_crc: bool = True) -> bytes:
     """Decode a .bz2 stream with the device pipeline; host fallback on any
-    stream the device path cannot certify (multi-member, spurious marker
-    matches, pathological convergence)."""
+    stream the device path cannot certify (multi-member, randomised
+    blocks, spurious marker matches, pathological convergence). Each
+    fallback is counted in ``fallback_stats`` and warned about."""
     from bz2tpu.runtime.decompressor import decompress as _host_decompress
+    from bz2tpu.utils.jaxenv import setup_compilation_cache
 
+    setup_compilation_cache()
     stream = bytes(stream)
-    out = _decompress_device_inner(stream, verify_crc)
-    if out is None:
-        return _host_decompress(stream, verify_crc=verify_crc)
-    return out
+    try:
+        return _decompress_device_inner(stream, verify_crc)
+    except _HostFallback as e:
+        reason = str(e)
+    fallback_stats[reason] += 1
+    warnings.warn(
+        f"decompress_device: host decoder used ({reason})", RuntimeWarning,
+        stacklevel=2,
+    )
+    return _host_decompress(stream, verify_crc=verify_crc)
 
 
-def _decompress_device_inner(stream: bytes, verify_crc: bool) -> bytes | None:
+def _decompress_device_inner(stream: bytes, verify_crc: bool) -> bytes:
     if not native.HAVE_NATIVE:
-        return None
+        raise _HostFallback("native extension unavailable")
     if len(stream) < 4 or stream[:3] != b"BZh" or not (ord("1") <= stream[3] <= ord("9")):
-        return None  # host path raises the proper error
+        raise _HostFallback("no stream header")  # host path raises the error
     level = stream[3] - ord("0")
     headers, ends = native.scan_blocks(stream)
     if not headers or not ends or headers[0] != 32:
-        return None
+        raise _HostFallback("no block at the stream start")
     # Single-member streams only: the final end marker must follow the last
     # header; anything else (concatenations, stray matches) -> host path.
     boundaries = headers[1:] + [ends[-1]]
@@ -191,11 +211,11 @@ def _decompress_device_inner(stream: bytes, verify_crc: bool) -> bytes | None:
     for i, start in enumerate(headers):
         try:
             hdr = _parse_block_header(stream, start)
-        except (Bz2FormatError, EOFError):
-            return None
+        except (Bz2FormatError, EOFError) as e:
+            raise _HostFallback(f"block header: {e}") from None
         n_bits = boundaries[i] - hdr["data_start_bit"]
         if n_bits <= 0:
-            return None
+            raise _HostFallback("empty block data")
         n_groups = hdr["selectors"].size
         gmax = _pow2_at_least(n_groups)
         hdr["gmax"] = gmax
@@ -271,7 +291,7 @@ def _decompress_device_inner(stream: bytes, verify_crc: bool) -> bytes | None:
             )
             n_bwts = np.asarray(n_bwts)
             if not all(bool(o) for o in np.asarray(oks)[: len(group)]):
-                return None
+                raise _HostFallback("device decode not certified")
             # ONE sliced fetch for the whole bucket batch.
             width = _pow2_at_least(int(n_bwts[: len(group)].max()), 1 << 10)
             width = min(width, out_cap)
@@ -290,12 +310,12 @@ def _decompress_device_inner(stream: bytes, verify_crc: bool) -> bytes | None:
     # Stream CRC sits 48 bits past the final end marker.
     pos = ends[-1] + 48
     if pos + 32 > len(stream) * 8:
-        return None
+        raise _HostFallback("stream ends inside its CRC")
     r = BitReader(stream)
     r._pos = pos
     stored = r.read_bits(32)
     if verify_crc and stored != s_crc:
         # Could be a multi-member stream (per-member CRCs): host path
         # decides whether this is an error or a member boundary.
-        return None
+        raise _HostFallback("stream CRC differs (multi-member?)")
     return b"".join(pieces)

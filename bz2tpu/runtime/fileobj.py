@@ -2,7 +2,7 @@
 
 The reference is CLI-only (reference app.cpp:69-176); the library surface
 here mirrors the stdlib so existing ``bz2.open``/``bz2.BZ2File`` call
-sites can switch imports and get the TPU pipeline:
+sites can switch imports and get the device pipeline:
 
   * write modes stream through the push-style ``StreamCompressor``
     (bounded memory; blocks leave for the device in batches);
@@ -32,7 +32,7 @@ _EOF_MSG = "Compressed file ended before the end-of-stream marker was reached"
 
 
 class BZ2File(io.BufferedIOBase):
-    """Stdlib-``bz2.BZ2File``-compatible file object over the TPU codec.
+    """Stdlib-``bz2.BZ2File``-compatible file object over the device codec.
 
     Args:
       filename: path, or an object with read()/write() (then closefp=False).

@@ -18,11 +18,11 @@ include/opencl.hpp:203-205):
     — every jit dispatch is then a cache *hit*: deserialization only,
     XLA never optimizes.
 
-Direct executable pickling (jax.experimental.serialize_executable) was
-measured and rejected on this backend: XLA:CPU-lineage runtimes refuse to
-serialize sort-comparator thunks ("`LessThan` is not serializable"), and
-every hot program here is sort-based. The cache entry format is the same
-deserialize-on-load executable, reached through the API that does work.
+Direct executable pickling (jax.experimental.serialize_executable) is not
+used: the XLA:CPU runtime refuses to serialize sort-comparator thunks
+("`LessThan` is not serializable"), and every hot program here is
+sort-based. The cache entry format is the same deserialize-on-load
+executable, reached through an API every backend supports.
 
 Artifacts are exact-match: jax version + platform + platform_version must
 agree (manifest-checked; mismatch warns once and falls back to normal

@@ -1,6 +1,7 @@
 """Native (C) decoder: differential vs stdlib bz2 and the NumPy decoder."""
 
 import bz2 as stdlib_bz2
+import os
 
 import numpy as np
 import pytest
@@ -329,3 +330,36 @@ def test_rle1_split_matches_stock_block_spans(rng):
             r = native.decode_block_at(stock, h, lv, False)
             spans.append(len(r[0]) if isinstance(r, tuple) else len(r))
         assert spans == [b.raw_length for b in ours], lv
+
+
+def _copy_source(tmp_path):
+    import shutil
+
+    src = tmp_path / "_bz2dec.c"
+    shutil.copy(os.path.join(os.path.dirname(native.__file__), "_bz2dec.c"), src)
+    return str(src), str(tmp_path / ("_bz2dec" + os.path.splitext(native._SO)[1]))
+
+
+def test_loader_rebuilds_so_older_than_source(tmp_path, monkeypatch):
+    import importlib.util
+
+    monkeypatch.delenv("BZ2TPU_NO_NATIVE_BUILD", raising=False)
+    src, so = _copy_source(tmp_path)
+    with open(so, "wb") as f:
+        f.write(b"a stale build")
+    os.utime(so, (1, 1))  # far older than the source
+    assert native._is_stale(so, src)
+    assert native._build(src, so)
+    assert not native._is_stale(so, src)
+    spec = importlib.util.spec_from_file_location("_bz2dec", so)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.crc32(b"123456789") == native.crc32(b"123456789") == 0xFC891918
+
+
+def test_loader_missing_so_is_stale_and_build_can_be_disabled(tmp_path, monkeypatch):
+    src, so = _copy_source(tmp_path)
+    assert native._is_stale(so, src)
+    monkeypatch.setenv("BZ2TPU_NO_NATIVE_BUILD", "1")
+    assert not native._build(src, so)
+    assert not os.path.exists(so)

@@ -61,3 +61,34 @@ def test_full_block_no_padding(rng):
     olast, optr = oracle_bwt(arr)
     np.testing.assert_array_equal(np.asarray(last), olast)
     assert int(ptr) == optr
+
+
+_STAGE_CASES = {
+    "text": (lambda rng: make_corpus(rng, "text", 700), 1024),
+    "random": (lambda rng: make_corpus(rng, "random", 1000), 1024),
+    "periodic7": (lambda rng: bytes(range(1, 8)) * 100, 1024),
+    "ab": (lambda rng: b"ab" * 300, 1024),
+    "tiny_a": (lambda rng: b"a", 256),
+    "tiny_ab": (lambda rng: b"ab", 256),
+    "tiny_aaa": (lambda rng: b"aaa", 256),
+    "tiny_abcd": (lambda rng: b"abcd", 256),
+    "partial_capacity": (lambda rng: make_corpus(rng, "text", 100), 2048),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_STAGE_CASES))
+def test_bwt_stage_vs_oracle(rng, case):
+    """pipeline.bwt_stage — the batched stage the compressor dispatches —
+    on a batch of the case block and a text block, against the oracle."""
+    from bz2tpu.ops.pipeline import bwt_stage
+
+    make, cap = _STAGE_CASES[case]
+    datas = [make(rng), make_corpus(rng, "text", cap // 2)]
+    blocks = np.stack([_pad(np.frombuffer(d, np.uint8), cap) for d in datas])
+    ns = np.asarray([len(d) for d in datas], np.int32)
+    lasts, ptrs = bwt_stage(jnp.asarray(blocks), jnp.asarray(ns))
+    for i, d in enumerate(datas):
+        olast, optr = oracle_bwt(np.frombuffer(d, np.uint8))
+        np.testing.assert_array_equal(np.asarray(lasts[i])[: len(d)], olast)
+        assert np.all(np.asarray(lasts[i])[len(d) :] == 0)
+        assert int(ptrs[i]) == optr

@@ -209,3 +209,26 @@ def test_build_len_luts_matches_searchsorted(rng):
         want = np.searchsorted(rows[u], v23, side="right")
         got = lut[u, v23 >> 3].astype(np.int64)
         np.testing.assert_array_equal(got, want)
+
+
+def test_device_decode_counts_no_fallback_on_single_member():
+    import warnings
+
+    from bz2tpu.runtime.device_decode import fallback_stats
+
+    data = b"single member stream " * 3000
+    before = sum(fallback_stats.values())
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        assert decompress_device(stdlib_bz2.compress(data, 1)) == data
+    assert sum(fallback_stats.values()) == before
+
+
+def test_device_decode_counts_and_warns_multi_member_fallback():
+    from bz2tpu.runtime.device_decode import fallback_stats
+
+    a, b = b"first member " * 500, b"second member " * 700
+    before = sum(fallback_stats.values())
+    with pytest.warns(RuntimeWarning, match="host decoder used"):
+        assert decompress_device(stdlib_bz2.compress(a, 1) + stdlib_bz2.compress(b, 1)) == a + b
+    assert sum(fallback_stats.values()) >= before + 1

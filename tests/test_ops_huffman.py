@@ -142,3 +142,32 @@ def test_plan_exact_group_boundary(rng):
 
     for n in (1, 199, 200, 599, 600, 1199, 1200, 2399, 2400, 10**6):
         assert int(table_count(jnp.int32(n))) == table_count_for_symbols(n)
+
+
+def test_refinement_products_pinned_to_highest_precision():
+    """Every float32 matrix product of the Huffman planner is pinned to
+    Precision.HIGHEST, so its exactness does not rest on a backend default
+    (float32 products may run in TF32 on a GPU)."""
+    import jax
+    from jax import lax
+
+    from bz2tpu.ops.huffman import huffman_assign
+
+    def dots(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                yield eqn
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                yield from dots(sub)
+
+    sym = jnp.zeros(302, jnp.int32)
+    closed = jax.make_jaxpr(
+        lambda s: huffman_assign(s, jnp.int32(300), None, jnp.int32(5), maxsel=8)
+    )(sym)
+    found = list(dots(closed.jaxpr))
+    # Cost and refit in the refinement loop, plus the refit inside
+    # total_bits, which scores two candidates.
+    assert len(found) == 4
+    for eqn in found:
+        assert eqn.params["precision"] == (lax.Precision.HIGHEST, lax.Precision.HIGHEST)
+        assert all(v.aval.dtype == jnp.float32 for v in eqn.invars)

@@ -110,3 +110,58 @@ def test_mtf_chunk_over_int16_bound_rejected():
 
     with pytest.raises(ValueError, match="32768"):
         mtf_rle2_encode(jnp.zeros(1024, jnp.uint8), jnp.int32(1024), chunk=65536)
+
+
+def _oracle_ranks(seq, n_in_use):
+    mtf = list(range(n_in_use))
+    out = []
+    for v in seq:
+        j = mtf.index(v)
+        out.append(j)
+        mtf.pop(j)
+        mtf.insert(0, v)
+    return out
+
+
+@pytest.mark.parametrize(
+    "n_sym,length,chunk",
+    [(5, 100, 64), (256, 1000, 128), (30, 4095, 512), (3, 17, 256)],
+)
+def test_collapsed_ranks_vs_oracle(rng, n_sym, length, chunk):
+    """The ranks scan over a run-collapsed sequence (adjacent symbols
+    distinct, -1 padding) against a literal move-to-front list."""
+    import functools
+
+    import jax
+
+    from bz2tpu.ops.mtf import _mtf_ranks_collapsed
+
+    seq = [int(rng.integers(n_sym))]
+    while len(seq) < length:
+        v = int(rng.integers(n_sym))
+        if v != seq[-1]:
+            seq.append(v)
+    padded = np.full(length + 37, -1, np.int32)
+    padded[:length] = seq
+    ranks = jax.jit(functools.partial(_mtf_ranks_collapsed, chunk=chunk))(
+        jnp.asarray(padded), jnp.int32(length), jnp.int32(n_sym)
+    )
+    np.testing.assert_array_equal(np.asarray(ranks)[:length], _oracle_ranks(seq, n_sym))
+
+
+def test_plan_then_emission_vs_oracle(rng):
+    """The compact pipeline's split form — collapsed-domain plan, then the
+    output-domain emission at full width — against the oracle stream."""
+    from bz2tpu.ops.mtf import _rle2_out, mtf_rle2_plan
+
+    arr = np.frombuffer(make_corpus(rng, "text", 3000), dtype=np.uint8)
+    last, _ = oracle_bwt(arr)
+    padded = np.zeros(4096, np.uint8)
+    padded[: arr.size] = last
+    plan = mtf_rle2_plan(jnp.asarray(padded), jnp.int32(arr.size), chunk=512)
+    symbols, freqs = _rle2_out(plan, 4096 + 2)
+    want = oracle_mtf(last)
+    n_sym = int(plan["n_sym"])
+    assert n_sym == want.symbols.size
+    np.testing.assert_array_equal(np.asarray(symbols)[:n_sym], want.symbols)
+    np.testing.assert_array_equal(np.asarray(freqs)[: want.alpha_size], want.freqs)

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 from bz2tpu.oracle import compress as oracle_compress, decompress as our_decompress
-from bz2tpu.runtime.compressor import compress as tpu_compress
+from bz2tpu.runtime.compressor import compress as device_compress
 
 from conftest import CORPUS_KINDS, make_corpus
 
@@ -20,7 +20,7 @@ from conftest import CORPUS_KINDS, make_corpus
 @pytest.mark.parametrize("kind", CORPUS_KINDS)
 def test_round_trip_small(rng, kind):
     data = make_corpus(rng, kind, 5000)
-    out = tpu_compress(data, level=1)
+    out = device_compress(data, level=1)
     assert stdlib_bz2.decompress(out) == data
     assert our_decompress(out) == data
 
@@ -28,32 +28,32 @@ def test_round_trip_small(rng, kind):
 @pytest.mark.parametrize("kind", ["text", "runs"])
 def test_matches_oracle_bytes(rng, kind):
     data = make_corpus(rng, kind, 5000)
-    assert tpu_compress(data, level=1) == oracle_compress(data, level=1)
+    assert device_compress(data, level=1) == oracle_compress(data, level=1)
 
 
 def test_multi_block(rng):
     # >1 block at level 1 (100k capacity): 350 kB of text -> 4 blocks.
     data = make_corpus(rng, "text", 350_000)
-    out = tpu_compress(data, level=1, parallel=2)  # forces multiple batches
+    out = device_compress(data, level=1, parallel=2)  # forces multiple batches
     assert stdlib_bz2.decompress(out) == data
     assert our_decompress(out) == data
 
 
 def test_empty_input():
-    out = tpu_compress(b"", level=9)
+    out = device_compress(b"", level=9)
     assert stdlib_bz2.decompress(out) == b""
     assert our_decompress(out) == b""
 
 
 def test_single_byte():
-    out = tpu_compress(b"x", level=1)
+    out = device_compress(b"x", level=1)
     assert stdlib_bz2.decompress(out) == b"x"
 
 
 def test_stock_ratio_parity(rng):
     # Compressed size within 1% of stock bzip2 at the same level.
     data = make_corpus(rng, "text", 200_000)
-    ours = len(tpu_compress(data, level=1))
+    ours = len(device_compress(data, level=1))
     stock = len(stdlib_bz2.compress(data, 1))
     assert ours <= stock * 1.01
 
@@ -76,7 +76,7 @@ def test_block_capacity_boundaries(rng, size_delta):
 
     cap = block_capacity(1)
     data = make_corpus(rng, "random", cap + size_delta)  # random: no RLE1 shrink
-    out = tpu_compress(data, level=1)
+    out = device_compress(data, level=1)
     assert stdlib_bz2.decompress(out) == data
 
 
@@ -87,7 +87,7 @@ def test_run_crossing_block_boundary(rng):
     cap = block_capacity(1)
     head = make_corpus(rng, "random", cap - 100)
     data = head + b"\x42" * 1000 + make_corpus(rng, "text", 5000)
-    out = tpu_compress(data, level=1)
+    out = device_compress(data, level=1)
     assert stdlib_bz2.decompress(out) == data
 
 
@@ -96,5 +96,5 @@ def test_rle1_255_boundary_patterns(rng):
     data = b"".join(
         bytes([i % 251]) * n for i, n in enumerate([4, 255, 259, 510, 3, 1000])
     ) * 50
-    out = tpu_compress(data, level=1)
+    out = device_compress(data, level=1)
     assert stdlib_bz2.decompress(out) == data

@@ -1,10 +1,10 @@
-"""AOT cold-start measurement (VERDICT r4 missing #2).
+"""AOT cold-start measurement.
 
-The round-3 "done" criterion for the shippable AOT artifact
-(utils/aot.py, the reference's prebuilt-binary ship model,
-include/opencl.hpp:203-205): a FRESH process with an EMPTY
-``BZ2TPU_CACHE_DIR`` and ``BZ2TPU_AOT_DIR`` pointing at the artifact must
-produce its first compressed byte in < 60 s on the device terminal.
+The criterion for the shippable AOT artifact (utils/aot.py, the
+reference's prebuilt-binary ship model, include/opencl.hpp:203-205): a
+FRESH process with an EMPTY ``JAX_COMPILATION_CACHE_DIR`` and
+``BZ2TPU_AOT_DIR`` pointing at the artifact must produce its first
+compressed byte in < 60 s.
 
 This tool:
   1. exports (or reuses) an artifact for level 9 / batch 8;
@@ -14,7 +14,10 @@ This tool:
      start to the first compressed byte leaving the stitcher;
   3. spawns the CONTROL: same fresh process, same empty cache, NO
      artifact — the full-XLA-compile cold start, for the ratio;
-  4. writes AOT_COLD_START.json at the repo root (bench.py folds it in).
+  4. prints the record as one JSON line.
+
+Every step runs in a child process, one at a time, and this parent never
+imports JAX: on a GPU only one process at a time holds the card.
 
 Usage: python tools/bench_aot_cold.py [--artifact DIR] [--skip-control]
 """
@@ -31,8 +34,6 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-
-OUT = os.path.join(ROOT, "AOT_COLD_START.json")
 
 # The child measures time-to-first-compressed-byte: interpreter start ->
 # first write() from the streaming compressor. One full 8x900k batch of
@@ -69,7 +70,7 @@ print("CHILD_RESULT " + str({"first_byte_s": round(sink.first, 2),
 def _run_child(artifact: str | None, timeout: int) -> dict:
     with tempfile.TemporaryDirectory() as cache:
         env = dict(os.environ)
-        env["BZ2TPU_CACHE_DIR"] = os.path.join(cache, "xla")  # empty, fresh
+        env["JAX_COMPILATION_CACHE_DIR"] = os.path.join(cache, "xla")  # empty, fresh
         env["BZ2TPU_ROOT"] = ROOT
         env.pop("BZ2TPU_AOT_DIR", None)
         if artifact:
@@ -129,11 +130,9 @@ def main() -> int:
               file=sys.stderr, flush=True)
         rec["control_cold"] = _run_child(None, timeout=3600)
 
-    rec["criterion"] = "first_byte_s < 60 with artifact (VERDICT r3/r4)"
+    rec["criterion"] = "first_byte_s < 60 with artifact"
     fb = rec["aot_cold"].get("first_byte_s")
     rec["pass"] = bool(fb is not None and fb < 60)
-    with open(OUT, "w") as f:
-        json.dump(rec, f, indent=1)
     print(json.dumps(rec))
     return 0
 
